@@ -1,11 +1,11 @@
-// gsplat_native: C++ host runtime for the TPU gaussian-splatting framework.
+// gsplat_native: C++ host runtime for the JAX gaussian-splatting framework.
 //
 // Native equivalents of the reference's C++ host layer (dataloader +
-// gaussian-init KNN + PLY writer; see /root/reference/src/colmap.cpp,
+// gaussian-init KNN + PLY writer; see src/colmap.cpp,
 // gaussian.cpp, utils.cpp): a fast points3D.bin parser, an OpenMP kd-tree
 // k-nearest-neighbor mean-distance pass (replacing nanoflann), and a binary
 // PLY writer. Exposed as a C ABI consumed from Python via ctypes
-// (gsplat_tpu/io/native.py); pure-Python fallbacks exist for every entry.
+// (gsplat_jax/io/native.py); pure-Python fallbacks exist for every entry.
 //
 // Build: make -C native   (produces libgsplat_native.so)
 

@@ -1,4 +1,4 @@
-"""Measure the depth-quantization divergence (VERDICT r4 item 8).
+"""Measure the depth-quantization divergence.
 
 The product tile sort quantizes depth to <= 16-bit log buckets
 (ops/binning.py quantize_depth); the reference sorts exact f32 depth
@@ -23,8 +23,8 @@ import numpy as np
 
 
 def build_scene(n, seed=11):
-    from gsplat_tpu.train.init import GaussianData
-    from gsplat_tpu.train.state import init_state, round_capacity
+    from gsplat_jax.train.init import GaussianData
+    from gsplat_jax.train.state import init_state, round_capacity
 
     rng = np.random.default_rng(seed)
     # Tight cluster: ~n/6 Gaussians per tile column on average, with z
@@ -52,17 +52,14 @@ def main():
 
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 300_000
 
-    from gsplat_tpu.utils.platform import enable_compile_cache
+    from gsplat_jax.utils.platform import enable_compile_cache
 
-    enable_compile_cache(
-        os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), ".jax_cache")
-    )
+    enable_compile_cache()
 
-    from gsplat_tpu.ops.binning import build_tile_tables, depth_key_bits
-    from gsplat_tpu.ops.camera import build_camera_matrices
-    from gsplat_tpu.ops.render import pack_attrs, rasterize
-    from gsplat_tpu.train.step import StepStatics, _per_gaussian
+    from gsplat_jax.ops.binning import build_tile_tables, depth_key_bits
+    from gsplat_jax.ops.camera import build_camera_matrices
+    from gsplat_jax.ops.render import pack_attrs, rasterize
+    from gsplat_jax.train.step import StepStatics, _per_gaussian
 
     W, H = 512, 384
     state = build_scene(n)
@@ -70,7 +67,7 @@ def main():
         np.array([1.0, 0, 0, 0]), np.zeros(3), W, H, W * 0.9, W * 0.9
     )
     st = StepStatics(
-        width=W, height=H, tile=16, chunk=128, pair_cap=1 << 22,
+        width=W, height=H, tile=16, chunk=16, pair_cap=1 << 22,
         row_cap=1 << 21, l_max=3,
         focal_x=cm.focal_x, focal_y=cm.focal_y,
         tan_fovx=cm.tan_fovx, tan_fovy=cm.tan_fovy,
@@ -100,13 +97,11 @@ def main():
                 uv, z, radius, mask, attrs=attrs,
                 num_tiles_x=st.num_tiles_x, num_tiles_y=st.num_tiles_y,
                 tile_size=st.tile, pair_cap=st.pair_cap,
-                chunk_size=st.chunk, row_cap=st.row_cap,
-                interpret=False, depth_rank=rank,
+                row_cap=st.row_cap, depth_rank=rank,
             )
             out = rasterize(
                 uv, conic, rgb, params["opacity"], tables, jnp.float32(0.0),
                 width=W, height=H, tile=st.tile, chunk=st.chunk,
-                interpret=False,
             )
             return out.image, tables.num_pairs
         return jax.jit(fn)(state.params)

@@ -1,7 +1,7 @@
-"""End-to-end convergence drive on the REAL TPU with a synthetic scene.
+"""End-to-end convergence drive on the GPU with a synthetic scene.
 
 Builds a ground-truth Gaussian scene, renders K camera views with the
-framework's own renderer (gsplat_tpu.tools.synthetic), then trains a fresh
+framework's own renderer (gsplat_jax.tools.synthetic), then trains a fresh
 model from a noisy point cloud through the full Trainer (densify, SH
 schedule, PLY export) and asserts the eval PSNR improves substantially.
 This is the no-dataset proxy for the garden benchmark (zero-egress
@@ -11,8 +11,9 @@ Usage: python scripts/e2e_synthetic.py [iters]
 """
 
 import sys
+from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import dataclasses
 import tempfile
@@ -25,10 +26,10 @@ ITERS = int(sys.argv[1]) if len(sys.argv) > 1 else 600
 
 
 def main():
-    from gsplat_tpu.config import parse_config
-    from gsplat_tpu.tools.synthetic import write_synthetic_dataset
-    from gsplat_tpu.train.init import initialize_gaussians
-    from gsplat_tpu.train.trainer import Trainer
+    from gsplat_jax.config import parse_config
+    from gsplat_jax.tools.synthetic import write_synthetic_dataset
+    from gsplat_jax.train.init import initialize_gaussians
+    from gsplat_jax.train.trainer import Trainer
 
     tmp = Path(tempfile.mkdtemp(prefix="gsplat_e2e_"))
     scene = write_synthetic_dataset(
@@ -38,7 +39,7 @@ def main():
     print(f"GT views rendered to {tmp}/scene")
 
     cfg = dataclasses.replace(
-        parse_config("/root/repo/configs/base.yaml"),
+        parse_config(Path(__file__).resolve().parents[1] / "configs" / "base.yaml"),
         dataset_path="scene", downsample_factor=1,
         num_iters=ITERS, max_gaussians=200_000,
         print_interval=10 ** 9, test_eval_interval=10 ** 9,

@@ -11,8 +11,9 @@ Usage: python scripts/overfit_real.py [iters] [n_gaussians]
 """
 
 import sys
+from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import time
 
@@ -20,15 +21,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gsplat_tpu.io.images import load_image
-from gsplat_tpu.ops.camera import build_camera_matrices
-from gsplat_tpu.train.init import GaussianData
-from gsplat_tpu.train.state import init_state, round_capacity, round_pair_cap
-from gsplat_tpu.train.step import StepStatics, get_train_step
+from gsplat_jax.io.images import load_image
+from gsplat_jax.ops.camera import build_camera_matrices
+from gsplat_jax.train.init import GaussianData
+from gsplat_jax.train.state import init_state, round_capacity, round_pair_cap
+from gsplat_jax.train.step import StepStatics, get_train_step
 
 ITERS = int(sys.argv[1]) if len(sys.argv) > 1 else 2000
 N = int(sys.argv[2]) if len(sys.argv) > 2 else 10_000
-IMG = "/root/reference/assets/overview.jpg"
+IMG = "assets/overview.jpg"
 
 gt_np = load_image(IMG)
 H, W = gt_np.shape[:2]
@@ -70,7 +71,7 @@ cm = build_camera_matrices(
 )
 pair_cap = round_pair_cap(30 * N)
 st = StepStatics(
-    width=W, height=H, tile=16, chunk=128, pair_cap=pair_cap, l_max=3,
+    width=W, height=H, tile=16, chunk=16, pair_cap=pair_cap, l_max=3,
     focal_x=cm.focal_x, focal_y=cm.focal_y,
     tan_fovx=cm.tan_fovx, tan_fovy=cm.tan_fovy,
     near_thresh=0.3, mh_dist=3.0, cull_padding=100, ssim_frac=0.2,

@@ -1,4 +1,4 @@
-"""Garden-scale stability run on the real TPU: full resolution, long
+"""Garden-scale stability run on the GPU: full resolution, long
 schedule, densification growth, opacity resets, SH schedule, cap growth.
 
 The zero-egress proxy for training Mip-NeRF 360 garden @ /4 (1296x840):
@@ -10,8 +10,9 @@ Usage: python scripts/train_at_scale.py [iters] [width height]
 """
 
 import sys
+from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import dataclasses
 import json
@@ -27,13 +28,13 @@ H = int(sys.argv[3]) if len(sys.argv) > 3 else 840
 
 
 def main():
-    from gsplat_tpu.config import parse_config
-    from gsplat_tpu.io.colmap import (
+    from gsplat_jax.config import parse_config
+    from gsplat_jax.io.colmap import (
         read_cameras_binary, read_images_binary, read_points3d_binary,
     )
-    from gsplat_tpu.tools.synthetic import write_synthetic_dataset
-    from gsplat_tpu.train.init import initialize_gaussians
-    from gsplat_tpu.train.trainer import Trainer
+    from gsplat_jax.tools.synthetic import write_synthetic_dataset
+    from gsplat_jax.train.init import initialize_gaussians
+    from gsplat_jax.train.trainer import Trainer
 
     tmp = Path(tempfile.mkdtemp(prefix="gsplat_scale_"))
     print(f"dataset dir: {tmp}")
@@ -45,7 +46,7 @@ def main():
     print(f"dataset written in {time.time() - t0:.1f}s")
 
     cfg = dataclasses.replace(
-        parse_config("/root/repo/configs/base.yaml"),
+        parse_config(Path(__file__).resolve().parents[1] / "configs" / "base.yaml"),
         dataset_path="scene", downsample_factor=1,
         num_iters=ITERS, max_gaussians=2_000_000,
         print_interval=500, test_eval_interval=500,

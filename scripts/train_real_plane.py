@@ -2,7 +2,7 @@
 
 Runs the FULL base.yaml-shaped schedule — densification, opacity resets,
 SH growth, background cycling — on the real-texture plane dataset
-(gsplat_tpu/tools/real_plane.py): the reference README photograph
+(gsplat_jax/tools/real_plane.py): the reference README photograph
 texture-mapped onto a plane, with ground truth from exact numpy
 projective warping (independent of the splat renderer). This is the
 closest obtainable analog of training Mip-NeRF 360 photos in this
@@ -15,18 +15,13 @@ Usage: python scripts/train_real_plane.py [iters] [views] [WxH] [plane|layers]
 """
 
 import sys
+from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import dataclasses
 import time
-from pathlib import Path
 
-import yaml
-
-from gsplat_tpu.utils.platform import honor_cpu_platform_request
-
-honor_cpu_platform_request()
 
 
 def main():
@@ -40,12 +35,12 @@ def main():
     thresh_mul = float(sys.argv[5]) if len(sys.argv) > 5 else 1.0
     w, h = (int(x) for x in size.split("x"))
 
-    from gsplat_tpu.config import parse_config
-    from gsplat_tpu.tools.real_plane import (
+    from gsplat_jax.config import parse_config
+    from gsplat_jax.tools.real_plane import (
         write_real_layers_dataset, write_real_plane_dataset,
     )
-    from gsplat_tpu.train.init import initialize_gaussians
-    from gsplat_tpu.train.trainer import Trainer
+    from gsplat_jax.train.init import initialize_gaussians
+    from gsplat_jax.train.trainer import Trainer
 
     root = Path(f"/tmp/real{layout}_run")
     t0 = time.time()
@@ -55,14 +50,10 @@ def main():
     print(f"dataset: {layout} {views} views {w}x{h} "
           f"in {time.time()-t0:.1f}s", flush=True)
 
-    base = yaml.safe_load(open(Path(__file__).parent.parent
-                               / "configs" / "base.yaml"))
-    cfg_path = root / "config.yaml"
-    with open(cfg_path, "w") as f:
-        yaml.safe_dump(base, f)
+    cfg_path = Path(__file__).resolve().parents[1] / "configs" / "base.yaml"
     # Scale the base.yaml schedule to the requested iteration count, the
     # way extended.yaml scales base.yaml (SURVEY: same knobs, new spans).
-    frac = iters / base["num_iters"]
+    frac = iters / parse_config(cfg_path).num_iters
 
     def s(v):
         return max(1, int(v * frac))
@@ -106,8 +97,7 @@ def main():
         f"final_gaussians={n_alive} eval_psnr={psnr:.2f}",
         flush=True,
     )
-    # Recordable artifact (VERDICT r3 task 3): the full-scale training
-    # evidence a driver/judge can re-check without re-running.
+    # The run's result as JSON beside the repo, for later comparison.
     import json
 
     import jax

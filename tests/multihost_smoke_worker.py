@@ -2,7 +2,7 @@
 
 Unlike multihost_worker.py (the full DP/TP/densify loop, slow-marked), this
 only proves the distributed runtime forms and ONE psum crosses the process
-boundary through the product mesh helper (gsplat_tpu.parallel.make_mesh):
+boundary through the product mesh helper (gsplat_jax.parallel.make_mesh):
 compile is a few seconds, so the proof runs in every default `pytest -q`.
 
 Usage: python multihost_smoke_worker.py <process_id> <num_processes> <coord>
@@ -21,15 +21,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
-
 import numpy as np  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
 
 def main() -> int:
     pid, nproc, coord = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-    from gsplat_tpu.parallel import initialize_multihost, make_mesh
+    from gsplat_jax.parallel import initialize_multihost, make_mesh
 
     initialize_multihost(coord, nproc, pid)
     assert jax.process_count() == nproc, jax.process_count()

@@ -11,7 +11,7 @@ Usage: python multihost_worker.py <process_id> <num_processes> <coordinator>
 import os
 import sys
 
-os.environ["JAX_PLATFORMS"] = "cpu"
+os.environ["JAX_PLATFORMS"] = "cpu"  # also selects interpret-mode kernels
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "")
     + " --xla_force_host_platform_device_count=2"
@@ -22,16 +22,11 @@ sys.path.insert(0, os.path.dirname(__file__))
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
-# Persistent compile cache (same dir as tests/conftest.py): the DP/TP
-# programs cost minutes to compile on this 1-core host; cache hits across
-# runs make the 2-process proof affordable in the default suite.
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(__file__), "..", ".jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+from gsplat_jax.utils.platform import enable_compile_cache  # noqa: E402
+
+# The DP program costs minutes to compile on a small host; the shared
+# persistent cache makes the 2-process proof affordable.
+enable_compile_cache()
 
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -40,9 +35,9 @@ from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
 def main() -> int:
     pid, nproc, coord = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-    from gsplat_tpu.parallel import initialize_multihost, make_mesh
-    from gsplat_tpu.parallel.data_parallel import dp_train_step
-    from gsplat_tpu.train.state import init_state
+    from gsplat_jax.parallel import initialize_multihost, make_mesh
+    from gsplat_jax.parallel.data_parallel import dp_train_step
+    from gsplat_jax.train.state import init_state
 
     initialize_multihost(coord, nproc, pid)
     assert jax.process_count() == nproc, jax.process_count()
@@ -98,7 +93,7 @@ def main() -> int:
     # The replicated-determinism claim at full loop scope: after 20 DP
     # steps and one adaptive-density rebuild + Morton re-sort (all SPMD on
     # the global mesh), every process must hold BYTE-identical parameters.
-    from gsplat_tpu.train.density import DensityStatics, get_density_fns
+    from gsplat_jax.train.density import DensityStatics, get_density_fns
 
     ds = DensityStatics(
         scene_extent=4.0, uv_grad_threshold=1e-6,
@@ -140,7 +135,7 @@ def main() -> int:
     # One camera, tile rows sharded over the 4 GLOBAL devices: the
     # backward's gradient psum crosses the process boundary over the
     # jax.distributed transport.
-    from gsplat_tpu.parallel.tile_parallel import get_tp_train_step
+    from gsplat_jax.parallel.tile_parallel import get_tp_train_step
 
     def replicated(host_np):
         host_np = np.asarray(host_np)

@@ -3,19 +3,21 @@
 Exercises the whole reference entry path (main.cpp:10-98 parity): YAML
 config parse, the three COLMAP binary readers, Gaussian init from SfM
 points, trainer with split/schedules, and the PLY export — end to end on a
-generated on-disk dataset (gsplat_tpu.tools.synthetic).
+generated on-disk dataset (gsplat_jax.tools.synthetic).
 """
 
-import yaml
+import subprocess
+import sys
+from pathlib import Path
 
-from gsplat_tpu import cli
-from gsplat_tpu.config import parse_config
-from gsplat_tpu.io.ply import load_ply
-from gsplat_tpu.tools.synthetic import write_synthetic_dataset
+from gsplat_jax import cli
+from gsplat_jax.config import parse_config, parse_flat_yaml
+from gsplat_jax.io.ply import load_ply
+from gsplat_jax.tools.synthetic import write_synthetic_dataset
 
 
 def _write_config(path, dataset_name, out_dir, num_iters):
-    base = yaml.safe_load(open("configs/base.yaml"))
+    base = parse_flat_yaml(open("configs/base.yaml").read())
     base.update(
         dataset_path=dataset_name,
         downsample_factor=1,
@@ -39,13 +41,14 @@ def _write_config(path, dataset_name, out_dir, num_iters):
         strict_reference=False,
     )
     with open(path, "w") as f:
-        yaml.safe_dump(base, f)
+        f.writelines(f"{k}: {v}\n" for k, v in base.items())
 
 
 # All CLI tests share one dataset geometry (views/size/counts): identical
 # camera intrinsics + scene extent mean identical StepStatics, so the jitted
 # train/render/density programs compile ONCE per pytest process (interpret-
 # mode pallas compiles dominate suite wall-clock).
+REPO = Path(__file__).resolve().parents[1]
 DATASET = dict(
     name="scene", n_views=3, width=48, height=32, n_gaussians=60, n_points=80
 )
@@ -71,6 +74,26 @@ def test_cli_end_to_end(tmp_path):
     assert cfg.num_iters == 10
 
 
+def test_cli_needs_neither_yaml_nor_pil(tmp_path):
+    """The CLI on a synthetic scene (PPM images, the flat config parser)
+    runs with PyYAML and Pillow unimportable."""
+    code = f"""
+import sys
+sys.modules["yaml"] = None
+sys.modules["PIL"] = None
+sys.path.insert(0, {str(Path(__file__).parent)!r})
+from test_cli import DATASET, _write_config, cli, write_synthetic_dataset
+root = {str(tmp_path)!r}
+write_synthetic_dataset(root, **DATASET)
+_write_config(root + "/c.yaml", "scene", root + "/out", num_iters=10)
+assert cli.main([root + "/c.yaml", root, "--max-iters", "2"]) == 0
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert (tmp_path / "out" / "trained.ply").is_file()
+
+
 def test_cli_resume(tmp_path):
     """Interrupt training with --max-iters, then resume from the saved
     checkpoint under the SAME config (shares every jitted program with
@@ -84,7 +107,7 @@ def test_cli_resume(tmp_path):
     assert cli.main([str(cfg_path), str(tmp_path), "--max-iters", "4"]) == 0
     ck = out_dir / "checkpoint.npz"
     assert ck.is_file()
-    from gsplat_tpu.utils.checkpoint import load_checkpoint
+    from gsplat_jax.utils.checkpoint import load_checkpoint
 
     assert load_checkpoint(ck).iteration == 4
     assert cli.main([str(cfg_path), str(tmp_path), "--resume", str(ck),

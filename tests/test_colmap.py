@@ -11,9 +11,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from gsplat_tpu.io import colmap
+from gsplat_jax.io import colmap
 
-REF_TEST_DATA = Path("/root/reference/test_data")
+REF_TEST_DATA = Path("test_data")
 
 
 def _make_fixture(tmp_path):

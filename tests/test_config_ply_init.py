@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from gsplat_tpu.config import parse_config
-from gsplat_tpu.io.ply import load_ply, save_ply
-from gsplat_tpu.train.init import GaussianData, initialize_gaussians
+from gsplat_jax.config import parse_config
+from gsplat_jax.io.ply import load_ply, save_ply
+from gsplat_jax.train.init import GaussianData, initialize_gaussians
 
 BASE_YAML = """\
 dataset_path: garden
@@ -75,6 +75,39 @@ def test_parse_config_missing_key_raises(tmp_path):
 def test_parse_config_missing_file_raises(tmp_path):
     with pytest.raises(FileNotFoundError):
         parse_config(tmp_path / "nope.yaml")
+
+
+@pytest.mark.parametrize("name", ["base.yaml", "extended.yaml"])
+def test_flat_parser_matches_yaml(name):
+    """The PyYAML-free parser gives exactly what yaml.safe_load gives."""
+    yaml = pytest.importorskip("yaml")
+    from pathlib import Path
+
+    from gsplat_jax.config import parse_flat_yaml
+
+    text = (Path(__file__).parents[1] / "configs" / name).read_text()
+    text += "# trailing comment\nquoted: 'a b'  # note\nempty:\nflag: Off\n"
+    want = yaml.safe_load(text)
+    got = parse_flat_yaml(text)
+    assert got == want
+    assert {k: type(v) for k, v in got.items()} == {
+        k: type(v) for k, v in want.items()
+    }
+
+
+def test_ppm_roundtrip(tmp_path, rng):
+    from gsplat_jax.io.images import load_image, read_ppm, write_ppm
+
+    img = rng.integers(0, 256, (7, 11, 3), dtype=np.uint8)
+    path = tmp_path / "x.ppm"
+    write_ppm(path, img)
+    np.testing.assert_array_equal(read_ppm(path), img)
+    np.testing.assert_array_equal(load_image(str(path)),
+                                  img.astype(np.float32) / 255.0)
+    # A header comment is legal PPM.
+    data = path.read_bytes().replace(b"P6\n", b"P6\n# made by hand\n", 1)
+    path.write_bytes(data)
+    np.testing.assert_array_equal(read_ppm(path), img)
 
 
 def test_ply_roundtrip(tmp_path, rng):

@@ -1,297 +1,223 @@
-"""Direct unit tests of the Pallas helper kernels (interpret mode).
+"""Unit tests of binning's building blocks and the rasterizer backends.
 
-The binning/render suites cover these end to end; these pin the kernel
-contracts in isolation: segment-expand (single and dual-dtype records)
-against numpy.repeat, segment-sum (f32 and packed int32 values) against
-numpy range sums, and the packed-gradient word format roundtrip.
+The binning/render suites cover these end to end; these pin the contracts
+in isolation: the slot expansion against numpy.repeat, the tile sort
+against numpy.lexsort (ties, duplicate and mega-duplicate runs), the packed
+sort-payload format, and the per-Gaussian gradient sums of the Pallas
+backward (interpret mode) against the plain XLA reference rasterizer.
 """
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
 
-from gsplat_tpu.kernels.expand import segment_expand
-from gsplat_tpu.kernels.rasterize import pack_grad_rows, unpack_grad_rows
-from gsplat_tpu.kernels.segsum import segment_sum_by_gid
+from gsplat_jax.kernels.packing import (
+    pack_bf16_pair, pack_f16_pair, pack_rgb_e5, unpack_bf16_pair,
+    unpack_f16_pair, unpack_rgb_e5,
+)
+from gsplat_jax.ops.binning import segment_ids, tile_sort
 
 
-def _counts_offsets(rng, n, max_count=7):
-    # COMPACTED input per the kernel contract: every active record owns
-    # >= 1 slot; zero-count records only at the tail.
+def _counts_offsets(rng, n, max_count=7, zero_tail=2):
+    # Every record owns >= 1 slot except a zero-count tail (binning's
+    # level-2 layout: rows past the valid total own no candidate).
     counts = rng.integers(1, max_count, n).astype(np.int32)
     counts[np.sort(rng.choice(n - 2, 3, replace=False))] += 11
-    counts[-2:] = 0
+    if zero_tail:
+        counts[-zero_tail:] = 0
     off = np.cumsum(counts) - counts
-    total = int(counts.sum())
-    return counts, off.astype(np.int32), total
+    return counts, off.astype(np.int32), int(counts.sum())
+
+
+def _expand(vals, off, cap):
+    ids = segment_ids(jnp.asarray(off), cap)
+    return np.asarray(jnp.asarray(vals)[:, ids]), np.asarray(ids)
 
 
 def test_segment_expand_matches_numpy_repeat(rng):
-    # n close to the 2048-slot block size with counts ~1: a block's source
-    # span then approaches its DMA window (2176 records), exercising the
-    # widest legal window-tile predication, not just the small-span case.
     n, s_cap = 1900, 4096
-    counts, off, total = _counts_offsets(rng, n, max_count=2)
+    counts, off, total = _counts_offsets(rng, n, max_count=2, zero_tail=0)
     vals = rng.standard_normal((3, n)).astype(np.float32)
-    rec = np.concatenate([vals, off[None].astype(np.float32)], axis=0)
-    off_ext = jnp.asarray(np.concatenate([off, [total]]).astype(np.int32))
-    out = segment_expand(
-        jnp.asarray(rec), off_ext, jnp.int32(total), s_cap,
-        off_row=3, interpret=True,
-    )
-    out = np.asarray(out)
-    expect = np.repeat(vals, counts, axis=1)
-    np.testing.assert_array_equal(out[:3, :total], expect)
-    assert np.all(out[:, total:] == 0.0)
+    out, ids = _expand(vals, off, s_cap)
+    np.testing.assert_array_equal(out[:, :total],
+                                  np.repeat(vals, counts, axis=1))
+    # Slots past the total belong to the last record.
+    assert (ids[total:] == n - 1).all()
 
 
 def test_segment_expand_dual_dtype(rng):
+    # f32 and bf16 columns gathered by the same slot owners, with a
+    # zero-count tail whose records own no slot.
     n, s_cap = 300, 2048
     counts, off, total = _counts_offsets(rng, n)
     vals = rng.standard_normal((2, n)).astype(np.float32)
-    # bf16-exact side values (pre-rounded)
-    side = np.asarray(
-        jnp.asarray(rng.standard_normal((5, n)), jnp.float32)
-        .astype(jnp.bfloat16).astype(jnp.float32)
-    )
-    rec = np.concatenate([vals, off[None].astype(np.float32)], axis=0)
-    off_ext = jnp.asarray(np.concatenate([off, [total]]).astype(np.int32))
-    out, out_b = segment_expand(
-        jnp.asarray(rec), off_ext, jnp.int32(total), s_cap,
-        off_row=2, records_b16=jnp.asarray(side), interpret=True,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out)[:2, :total], np.repeat(vals, counts, axis=1)
-    )
+    side = jnp.asarray(rng.standard_normal((5, n)), jnp.bfloat16)
+    out, ids = _expand(vals, off, s_cap)
+    out_b = jnp.asarray(side)[:, ids]
+    np.testing.assert_array_equal(out[:, :total],
+                                  np.repeat(vals, counts, axis=1))
     assert out_b.dtype == jnp.bfloat16
     np.testing.assert_array_equal(
         np.asarray(out_b.astype(jnp.float32))[:, :total],
-        np.repeat(side, counts, axis=1),
+        np.repeat(np.asarray(side.astype(jnp.float32)), counts, axis=1),
     )
+    assert (ids[total:] == n - 1).all()
 
 
-def test_pack_grad_rows_roundtrip(rng):
-    g9 = jnp.asarray(rng.standard_normal((9, 256)).astype(np.float32))
-    g9_b = g9.astype(jnp.bfloat16).astype(jnp.float32)  # bf16-exact rows
-    words = pack_grad_rows(g9)
-    assert words.shape == (4, 256) and words.dtype == jnp.int32
-    back = unpack_grad_rows(words)
-    # Rows 0-5 are bf16 pairs (exact roundtrip of the bf16 rounding);
-    # rows 6-8 are the shared-exponent triple: error <= amax/256.
+def test_payload_words_roundtrip(rng):
+    a, b = (rng.standard_normal(4096).astype(np.float32) * 10
+            for _ in range(2))
+    hi, lo = unpack_bf16_pair(pack_bf16_pair(jnp.asarray(a), jnp.asarray(b)))
     np.testing.assert_array_equal(
-        np.asarray(back)[:6], np.asarray(g9_b)[:6]
-    )
-    amax = np.abs(np.asarray(g9)[6:9]).max(axis=0)
-    err = np.abs(np.asarray(back)[6:9] - np.asarray(g9)[6:9])
-    assert (err <= amax / 256 + 1e-12).all()
-    # packing roundtripped values is bit-stable (idempotent)
+        np.asarray(hi), np.asarray(jnp.asarray(a).astype(jnp.bfloat16)
+                                   .astype(jnp.float32)))
     np.testing.assert_array_equal(
-        np.asarray(pack_grad_rows(back)), np.asarray(words)
-    )
+        np.asarray(lo), np.asarray(jnp.asarray(b).astype(jnp.bfloat16)
+                                   .astype(jnp.float32)))
+    # f16 tile-relative positions: exact for f16-representable values.
+    u = np.round(rng.uniform(-300, 300, 4096) * 64) / 64
+    v = np.round(rng.uniform(-300, 300, 4096) * 64) / 64
+    fu, fv = unpack_f16_pair(pack_f16_pair(jnp.asarray(u, jnp.float32),
+                                           jnp.asarray(v, jnp.float32)))
+    np.testing.assert_array_equal(np.asarray(fu), u.astype(np.float16))
+    np.testing.assert_array_equal(np.asarray(fv), v.astype(np.float16))
+    # Packing unpacked values again is bit-stable (idempotent).
+    w = pack_bf16_pair(hi, lo)
+    np.testing.assert_array_equal(
+        np.asarray(pack_bf16_pair(*unpack_bf16_pair(w))), np.asarray(w))
 
 
-def test_pack_grad_rows_skewed_channels(rng):
-    # e5s9 shares one exponent across r/g/b: a channel much smaller than
-    # its siblings is quantized at the LARGE channel's scale (error <=
-    # amax/256 absolute, so large RELATIVE error / flush-to-zero on the
-    # small channel is possible per pair). The consumer is the per-Gaussian
-    # SUM over its pairs: the accepted contract is that summed error stays
-    # bounded by (n_pairs * amax/512)-ish — i.e. relative to the LARGE
-    # channel's sum, not the small one's. Pin that bound at a 1e4 skew.
+def test_rgb_e5_skewed_channels(rng):
+    # e5s9 shares one exponent across r/g/b: every channel's error is
+    # bounded by the LARGEST channel's amax/256, so a 1e4x smaller sibling
+    # may lose all its relative precision.
     p = 4096
-    g9 = np.zeros((9, p), np.float32)
-    g9[:6] = rng.standard_normal((6, p))
-    g9[6] = rng.standard_normal(p) * 1.0  # dominant channel
-    g9[7] = rng.standard_normal(p) * 1e-4  # 1e4x smaller sibling
-    g9[8] = rng.standard_normal(p) * 1e-2
-    back = np.asarray(unpack_grad_rows(pack_grad_rows(jnp.asarray(g9))))
-    amax = np.abs(g9[6:9]).max(axis=0)
-    # Per-pair: absolute error bounded by amax/256 for EVERY channel,
-    # including the tiny one (which may be 100% relative error).
-    err = np.abs(back[6:9] - g9[6:9])
-    assert (err <= amax / 256 + 1e-12).all()
-    # Summed (the real consumer): error of each channel's sum is small
-    # relative to the dominant channel's scale. Rounding is to-nearest, so
-    # errors are ~uniform in [-amax/512, amax/512] and partially cancel;
-    # assert the deterministic worst-case bound.
-    sum_err = np.abs(back[6:9].sum(axis=1) - g9[6:9].sum(axis=1))
-    assert (sum_err <= (amax / 512).sum() + 1e-9).all()
+    rgb = np.stack([rng.standard_normal(p),
+                    rng.standard_normal(p) * 1e-4,
+                    rng.uniform(0, 1, p)]).astype(np.float32)
+    back = np.asarray(jnp.stack(unpack_rgb_e5(
+        pack_rgb_e5(*(jnp.asarray(c) for c in rgb)))))
+    amax = np.abs(rgb).max(axis=0)
+    assert (np.abs(back - rgb) <= amax / 256 + 1e-12).all()
+    word = pack_rgb_e5(*(jnp.asarray(c) for c in back))
+    np.testing.assert_array_equal(
+        np.asarray(jnp.stack(unpack_rgb_e5(word))), back)
 
 
-def test_segment_sum_by_gid_f32_and_packed(rng):
-    # Sorted gid column with empty ids, multi-chunk runs, an unsorted-id
-    # gap, and an invalid sentinel tail (>= n never summed).
-    n, p = 700, 4096
-    n_real = 3500
-    gids_real = np.sort(rng.integers(0, n, n_real)).astype(np.int32)
-    gids = np.concatenate(
-        [gids_real, np.full(p - n_real, 1 << 23, np.int32)]
-    )
-    vals = rng.standard_normal((9, p)).astype(np.float32)
-
-    sums = segment_sum_by_gid(
-        jnp.asarray(vals), jnp.asarray(gids), n, interpret=True
-    )
-    expect = np.zeros((9, n), np.float32)
-    for j in range(n_real):
-        expect[:, gids[j]] += vals[:, j]
-    np.testing.assert_allclose(
-        np.asarray(sums)[:, :n], expect, rtol=1e-5, atol=1e-4
-    )
-
-    # Packed path: every unpacked value is bf16-exact (bf16 pairs AND the
-    # e5s9 triple's q * 2^k codes), so the single bf16 MXU pass sums the
-    # ROUNDTRIPPED values exactly.
-    words = pack_grad_rows(jnp.asarray(vals))
-    vals_b = np.asarray(unpack_grad_rows(words))
-    sums_p = segment_sum_by_gid(
-        words, jnp.asarray(gids), n, interpret=True
-    )
-    expect_b = np.zeros((9, n), np.float32)
-    for j in range(n_real):
-        expect_b[:, gids[j]] += vals_b[:, j]
-    np.testing.assert_allclose(
-        np.asarray(sums_p)[:, :n], expect_b, rtol=1e-6, atol=1e-5
-    )
+def _sort_case(rng, case):
+    n = 8192
+    if case == "heavy_ties":  # many equal keys, unique (key, gid)
+        key = rng.integers(0, 1 << 6, n)
+        gid = rng.permutation(n)
+    elif case == "wide_keys":
+        key = rng.integers(0, 1 << 28, n)
+        gid = rng.integers(0, 1 << 20, n)
+    elif case == "clustered_tail":  # tile-coherent keys + invalid tail
+        base = np.repeat(rng.integers(0, 1 << 10, 16), n // 16)
+        key = base * 1024 + rng.integers(0, 1 << 10, n)
+        key[-1000:] = 1 << 24
+        gid = rng.permutation(n)
+    elif case == "duplicate_keys":  # one key per Gaussian run, ids differ
+        key = rng.integers(0, 500, n)
+        gid = np.arange(n)
+    else:  # "mega_duplicate": 75% identical (key, gid) sentinel tuples
+        key = rng.integers(0, 1 << 20, n)
+        gid = rng.integers(0, 1 << 20, n)
+        key[n // 4:] = 1 << 24
+        gid[n // 4:] = 1 << 23
+    return key.astype(np.int32), gid.astype(np.int32)
 
 
-def test_segment_sum_by_gid_column_sorted(rng):
-    """columns > 1: the stream is sorted within each strided column only
-    (the regroup's 3x-cheaper column sort); sums must be identical."""
-    n, p, cols = 700, 8192, 64
-    gids = rng.integers(0, n, p).astype(np.int32)
-    gids[rng.random(p) < 0.1] = 1 << 23  # scattered invalid sentinels
-    vals = rng.standard_normal((9, p)).astype(np.float32)
-    # column-sort (key + payload ride) exactly as ops/render.py does
-    ops = jax.lax.sort(
-        tuple(jnp.asarray(x).reshape(p // cols, cols)
-              for x in (gids,) + tuple(vals)),
-        dimension=0, is_stable=False, num_keys=1,
-    )
-    gids_s = np.asarray(ops[0]).reshape(p)
-    vals_s = jnp.stack([o.reshape(p) for o in ops[1:]], axis=0)
-    sums = segment_sum_by_gid(
-        vals_s, jnp.asarray(gids_s), n, interpret=True, columns=cols
-    )
-    expect = np.zeros((9, n), np.float32)
-    for j in range(p):
-        if gids[j] < n:
-            expect[:, gids[j]] += vals[:, j]
-    np.testing.assert_allclose(
-        np.asarray(sums)[:, :n], expect, rtol=1e-5, atol=1e-4
-    )
-
-
-def test_sort_blocks_bitonic(rng):
-    # Full in-VMEM bitonic vs numpy lexsort, per block (interpret mode).
-    from gsplat_tpu.kernels.sort import S_BLOCK, sort_blocks
-
-    n = 2 * S_BLOCK
-    key = rng.integers(0, 1 << 12, n).astype(np.int32)  # heavy ties
-    # unique (key, gid) per block (gid = per-block permutation), so the
-    # bitonic's tie order is fully determined and comparable to lexsort
-    gid = np.concatenate(
-        [rng.permutation(S_BLOCK).astype(np.int32) for _ in range(2)]
-    )
-    pay = rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32)
-    out = sort_blocks(
-        (jnp.asarray(key), jnp.asarray(gid), jnp.asarray(pay)),
-        num_keys=2, interpret=True,
-    )  # interleaved (n/128, 3, 128)
-    assert out.shape == (n // 128, 3, 128)
-    ks, gs, ps = (
-        np.asarray(out[:, w, :]).reshape(n) for w in range(3)
-    )
-    for b in range(2):
-        sl = slice(b * S_BLOCK, (b + 1) * S_BLOCK)
-        order = np.lexsort((gid[sl], key[sl]))
-        np.testing.assert_array_equal(ks[sl], key[sl][order])
-        np.testing.assert_array_equal(gs[sl], gid[sl][order])
-        # payload follows its element: (key,gid) unique => unique order
-        np.testing.assert_array_equal(ps[sl], pay[sl][order])
-
-
-def test_sort_blocks_single_key(rng):
-    from gsplat_tpu.kernels.sort import S_BLOCK, sort_blocks
-
-    n = S_BLOCK
-    key = rng.integers(0, 1 << 28, n).astype(np.int32)
-    pay = np.arange(n, dtype=np.int32)
-    out = sort_blocks(
-        (jnp.asarray(key), jnp.asarray(pay)), num_keys=1, interpret=True
-    )
-    ks, ps = (np.asarray(out[:, w, :]).reshape(n) for w in range(2))
-    np.testing.assert_array_equal(ks, np.sort(key))
-    # payload rows carry a permutation of the input
+@pytest.mark.parametrize("case", ["heavy_ties", "wide_keys", "clustered_tail",
+                                  "duplicate_keys", "mega_duplicate"])
+def test_tile_sort_matches_lexsort(rng, case):
+    key, gid = _sort_case(rng, case)
+    pay = np.arange(key.size, dtype=np.int32)
+    ks, gs, ps = (np.asarray(x) for x in tile_sort(
+        jnp.asarray(key), jnp.asarray(gid), (jnp.asarray(pay),)))
+    order = np.lexsort((gid, key))
+    np.testing.assert_array_equal(ks, key[order])
+    np.testing.assert_array_equal(gs, gid[order])
+    # The payload follows its element: exactly where (key, gid) is
+    # unique, as a multiset inside duplicate runs.
     np.testing.assert_array_equal(np.sort(ps), pay)
     np.testing.assert_array_equal(key[ps], ks)
+    np.testing.assert_array_equal(gid[ps], gs)
 
 
-def test_sample_sort_full(rng):
-    # Full samplesort vs lexsort: clustered keys (each block concentrated
-    # in a narrow key interval, like Morton-coherent pair streams) PLUS a
-    # sentinel tail, exercising run skew, boundary bounces, and assembly.
-    from gsplat_tpu.kernels.sort import S_BLOCK, sample_sort
+def _stream_scene(rng, packed):
+    from gsplat_jax.ops.binning import build_tile_tables
+    from gsplat_jax.ops.render import pack_attrs
+    from test_render import TILE, _make_scene
 
-    n = 4 * S_BLOCK
-    base = np.repeat(rng.integers(0, 1 << 10, 16), n // 16)
-    key = (base * 1024 + rng.integers(0, 1 << 10, n)).astype(np.int32)
-    key[-1000:] = (1 << 24)  # invalid-tail style sentinel keys
-    gid = rng.permutation(n).astype(np.int32)
-    pay = rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32)
-    (ks, gs, ps), ovf = sample_sort(
-        (jnp.asarray(key), jnp.asarray(gid), jnp.asarray(pay)),
-        num_keys=2, interpret=True,
+    width, height, n = 48, 32, 60
+    uv, conic, radius, z, opa, rgb = _make_scene(rng, n, width, height)
+    attrs = pack_attrs(jnp.asarray(uv), jnp.asarray(conic), jnp.asarray(rgb),
+                       jnp.asarray(opa))
+    tables = build_tile_tables(
+        jnp.asarray(uv), jnp.asarray(z), jnp.asarray(radius),
+        jnp.ones(n, bool), attrs=attrs, num_tiles_x=width // TILE,
+        num_tiles_y=height // TILE, tile_size=TILE, pair_cap=4096,
+        bf16_colors=packed,
     )
-    assert int(ovf) == 0
-    ks, gs, ps = (np.asarray(x) for x in (ks, gs, ps))
-    order = np.lexsort((gid, key))
-    np.testing.assert_array_equal(ks, key[order])
-    np.testing.assert_array_equal(gs, gid[order])
-    np.testing.assert_array_equal(ps, pay[order])
+    return tables, n, width // TILE, (width // TILE) * (height // TILE)
 
 
-def test_sample_sort_single_key_duplicates(rng):
-    # Single-key mode with massive duplication (the regroup's gid key):
-    # result must be key-sorted and an exact per-key multiset permutation.
-    from gsplat_tpu.kernels.sort import S_BLOCK, sample_sort
+def _backward_both(rng, packed, bg, k, interpret=True):
+    """Per-Gaussian gradient sums of the Pallas backward (interpret mode,
+    or compiled on the card) and of the plain reference on the same
+    forward output and cotangent."""
+    from gsplat_jax.kernels import rasterize as kern
+    from gsplat_jax.ops import raster_ref
 
-    n = 2 * S_BLOCK
-    key = rng.integers(0, 500, n).astype(np.int32)
-    pay = np.arange(n, dtype=np.int32)
-    (ks, ps), ovf = sample_sort(
-        (jnp.asarray(key), jnp.asarray(pay)), num_keys=1, interpret=True
-    )
-    assert int(ovf) == 0
-    ks, ps = np.asarray(ks), np.asarray(ps)
-    np.testing.assert_array_equal(ks, np.sort(key))
-    np.testing.assert_array_equal(key[ps], ks)  # payload follows element
-    np.testing.assert_array_equal(np.sort(ps), pay)
+    tables, n, ntx, nt = _stream_scene(rng, packed)
+    geom = dict(num_tiles_x=ntx, num_tiles=nt, tile=16, k=k)
+    args = (tables.stream, tables.tile_start, tables.tile_count,
+            jnp.float32(bg))
+    out = kern.rasterize_forward(*args, **geom, interpret=interpret)
+    np.testing.assert_allclose(
+        np.asarray(out), np.asarray(raster_ref.raster_forward_ref(*args,
+                                                                  **geom)),
+        rtol=1e-5, atol=1e-6)
+    di = jnp.asarray(rng.standard_normal((nt, 3, 256)).astype(np.float32))
+    tfin = out[:, 3:4]
+    pix = jnp.concatenate([
+        di, tfin, out[:, 4:5], bg * jnp.sum(di, 1, keepdims=True),
+        jnp.sum(di * (out[:, 0:3] - tfin * bg), 1, keepdims=True),
+        jnp.zeros_like(tfin)], axis=1)
+    bargs = (tables.stream, tables.splat_gid, pix, tables.tile_start,
+             tables.tile_count, n)
+    g_kernel = kern.rasterize_backward(*bargs, **geom, grad_scale=(24., 16.),
+                                       interpret=interpret)
+    g_ref = raster_ref.raster_backward_ref(*bargs, **geom,
+                                           grad_scale=(24., 16.))
+    return np.asarray(g_kernel), np.asarray(g_ref)
 
 
-def test_sample_sort_mega_duplicate_run(rng):
-    # A single (key, gid) value covering ~70% of the stream (the
-    # invalid-tail shape at scale): the position-tiebreak splitters must
-    # split the run across ranges instead of overflowing one range.
-    from gsplat_tpu.kernels.sort import S_BLOCK, sample_sort
+@pytest.mark.parametrize("packed", [False, True], ids=["f32", "packed"])
+def test_segment_sum_by_gid_f32_and_packed(rng, packed):
+    # Per-Gaussian sums accumulated by Gaussian id (per-pair rows then a
+    # segment sum for the kernel, a scatter-add in the reference) over both
+    # stream forms.
+    g_kernel, g_ref = _backward_both(rng, packed, bg=0.0, k=16)
+    assert np.abs(g_ref).max() > 0
+    scale = np.abs(g_ref).max(axis=0) + 1e-12
+    np.testing.assert_allclose(g_kernel / scale, g_ref / scale, atol=2e-5)
 
-    n = 4 * S_BLOCK
-    key = rng.integers(0, 1 << 20, n).astype(np.int32)
-    gid = rng.integers(0, 1 << 20, n).astype(np.int32)
-    key[n // 4:] = 1 << 24  # 75% identical sentinel tuples
-    gid[n // 4:] = 1 << 23
-    pay = np.arange(n, dtype=np.int32)
-    (ks, gs, ps), ovf = sample_sort(
-        (jnp.asarray(key), jnp.asarray(gid), jnp.asarray(pay)),
-        num_keys=2, interpret=True,
-    )
-    assert int(ovf) == 0
-    ks, gs, ps = (np.asarray(x) for x in (ks, gs, ps))
-    order = np.lexsort((gid, key))
-    np.testing.assert_array_equal(ks, key[order])
-    np.testing.assert_array_equal(gs, gid[order])
-    # payload: exact where keys unique; multiset-equal overall
-    np.testing.assert_array_equal(np.sort(ps), np.arange(n))
-    uniq = ks < (1 << 24)
-    np.testing.assert_array_equal(key[ps[uniq]], ks[uniq])
+
+def test_segment_sum_by_gid_multi_chunk(rng):
+    # Chunks of 4 splats: every tile's range spans many chunks, so the
+    # carried transmittance and colour prefix cross chunk boundaries.
+    g_kernel, g_ref = _backward_both(rng, True, bg=0.6, k=4)
+    scale = np.abs(g_ref).max(axis=0) + 1e-12
+    np.testing.assert_allclose(g_kernel / scale, g_ref / scale, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_compiled_kernels_match_reference(gpu, rng):
+    # The Triton-compiled kernels on the card, at the default chunk.
+    g_kernel, g_ref = _backward_both(rng, True, bg=0.2, k=32, interpret=False)
+    scale = np.abs(g_ref).max(axis=0) + 1e-12
+    np.testing.assert_allclose(g_kernel / scale, g_ref / scale, atol=2e-5)

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gsplat_tpu.ops.loss import C1, C2, compute_psnr, fused_loss
+from gsplat_jax.ops.loss import C1, C2, compute_psnr, fused_loss
 
 
 def test_uniform_image_closed_form():

@@ -6,10 +6,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from gsplat_tpu.ops.camera import build_camera_matrices
-from gsplat_tpu.parallel.data_parallel import dp_train_step, make_mesh
-from gsplat_tpu.train.state import init_state
-from gsplat_tpu.train.step import StepStatics, train_step
+from gsplat_jax.ops.camera import build_camera_matrices
+from gsplat_jax.parallel.data_parallel import dp_train_step, make_mesh
+from gsplat_jax.train.state import init_state
+from gsplat_jax.train.step import StepStatics, train_step
 from test_train import _synthetic_gaussians, _statics, W, H
 
 
@@ -111,7 +111,7 @@ def test_dp_identical_cameras_matches_single_chip(rng):
 def test_tp_tile_sharded_matches_single_chip(rng):
     """Tile-sharded single-camera step == single-chip step (same loss, same
     parameter update, up to f32 reduction order)."""
-    from gsplat_tpu.parallel.tile_parallel import make_tile_mesh, tp_train_step
+    from gsplat_jax.parallel.tile_parallel import make_tile_mesh, tp_train_step
 
     if len(jax.devices()) < 2:
         pytest.skip("needs 2 virtual devices")
@@ -149,21 +149,16 @@ def test_dp_trainer_full_loop(tmp_path):
     8-virtual-device mesh, keeping parameters replicated across devices."""
     import dataclasses
 
-    import yaml
-
-    from gsplat_tpu.config import parse_config
-    from gsplat_tpu.tools.synthetic import write_synthetic_dataset
-    from gsplat_tpu.train.init import initialize_gaussians
-    from gsplat_tpu.train.trainer import Trainer
+    from gsplat_jax.config import parse_config
+    from gsplat_jax.tools.synthetic import write_synthetic_dataset
+    from gsplat_jax.train.init import initialize_gaussians
+    from gsplat_jax.train.trainer import Trainer
 
     scene = write_synthetic_dataset(
         tmp_path, name="scene", n_views=4, width=48, height=32,
         n_gaussians=48, n_points=64,
     )
-    base = yaml.safe_load(open("configs/base.yaml"))
-    cfg_path = tmp_path / "c.yaml"
-    with open(cfg_path, "w") as f:
-        yaml.safe_dump(base, f)
+    cfg_path = "configs/base.yaml"
     cfg = dataclasses.replace(
         parse_config(cfg_path),
         dataset_path="scene", downsample_factor=1, num_iters=24,
@@ -207,13 +202,11 @@ def test_dp_trainer_heterogeneous_intrinsics(tmp_path):
     matched: per-image proj rebuild each iteration, trainer.cu:1299-1339."""
     import dataclasses
 
-    import yaml
-
-    from gsplat_tpu.config import parse_config
-    from gsplat_tpu.io.colmap import Camera
-    from gsplat_tpu.tools.synthetic import write_synthetic_dataset
-    from gsplat_tpu.train.init import initialize_gaussians
-    from gsplat_tpu.train.trainer import Trainer
+    from gsplat_jax.config import parse_config
+    from gsplat_jax.io.colmap import Camera
+    from gsplat_jax.tools.synthetic import write_synthetic_dataset
+    from gsplat_jax.train.init import initialize_gaussians
+    from gsplat_jax.train.trainer import Trainer
 
     if len(jax.devices()) < 2:
         pytest.skip("needs 2 virtual devices")
@@ -235,10 +228,7 @@ def test_dp_trainer_heterogeneous_intrinsics(tmp_path):
             scene.images[im] = dataclasses.replace(
                 scene.images[im], camera_id=cam2.id
             )
-    base = yaml.safe_load(open("configs/base.yaml"))
-    cfg_path = tmp_path / "c.yaml"
-    with open(cfg_path, "w") as f:
-        yaml.safe_dump(base, f)
+    cfg_path = "configs/base.yaml"
     cfg = dataclasses.replace(
         parse_config(cfg_path),
         dataset_path="scene", downsample_factor=1, num_iters=6,
@@ -263,21 +253,16 @@ def test_tp_trainer_loop(tmp_path):
     a short training loop end to end on the virtual mesh."""
     import dataclasses
 
-    import yaml
-
-    from gsplat_tpu.config import parse_config
-    from gsplat_tpu.tools.synthetic import write_synthetic_dataset
-    from gsplat_tpu.train.init import initialize_gaussians
-    from gsplat_tpu.train.trainer import Trainer
+    from gsplat_jax.config import parse_config
+    from gsplat_jax.tools.synthetic import write_synthetic_dataset
+    from gsplat_jax.train.init import initialize_gaussians
+    from gsplat_jax.train.trainer import Trainer
 
     scene = write_synthetic_dataset(
         tmp_path, name="scene", n_views=3, width=48, height=32,
         n_gaussians=48, n_points=64,
     )
-    base = yaml.safe_load(open("configs/base.yaml"))
-    cfg_path = tmp_path / "c.yaml"
-    with open(cfg_path, "w") as f:
-        yaml.safe_dump(base, f)
+    cfg_path = "configs/base.yaml"
     cfg = dataclasses.replace(
         parse_config(cfg_path),
         dataset_path="scene", downsample_factor=1, num_iters=5,

@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gsplat_tpu.ops import covariance, projection, sh
-from gsplat_tpu.ops.camera import build_camera_matrices
+from gsplat_jax.ops import covariance, projection, sh
+from gsplat_jax.ops.camera import build_camera_matrices
 
 
 def test_sigma_golden_identity_rotation():

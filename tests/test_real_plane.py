@@ -12,7 +12,7 @@ each other — the property training correctness depends on.
 import numpy as np
 import pytest
 
-from gsplat_tpu.tools.real_plane import (
+from gsplat_jax.tools.real_plane import (
     REFERENCE_PHOTO, render_plane_view, write_real_plane_dataset,
 )
 
@@ -25,10 +25,10 @@ def _have_photo():
 
 @pytest.mark.skipif(not _have_photo(), reason="reference photo not present")
 def test_dataset_roundtrip_and_projection_consistency(tmp_path):
-    from gsplat_tpu.io.colmap import (
+    from gsplat_jax.io.colmap import (
         read_cameras_binary, read_images_binary, read_points3d_binary,
     )
-    from gsplat_tpu.ops.camera import build_camera_matrices
+    from gsplat_jax.ops.camera import build_camera_matrices
 
     scene = write_real_plane_dataset(
         tmp_path, n_views=3, width=160, height=120, n_points=200,
@@ -97,7 +97,7 @@ def test_views_share_plane_content(tmp_path):
 
     # Re-render view 0 at the same pose via the public helper and compare
     # against the PNG on disk (IO roundtrip + determinism).
-    from gsplat_tpu.io.colmap import read_images_binary
+    from gsplat_jax.io.colmap import read_images_binary
 
     sparse = tmp_path / "realplane" / "sparse" / "0"
     imgs = read_images_binary(sparse / "images.bin")
@@ -125,9 +125,9 @@ def test_layers_dataset_occlusion_and_projection(tmp_path):
     the FRONT layer, projected with build_camera_matrices, lands on a GT
     pixel showing the front layer's texture even where the back wall is
     behind it."""
-    from gsplat_tpu.io.colmap import read_cameras_binary, read_images_binary
-    from gsplat_tpu.ops.camera import build_camera_matrices
-    from gsplat_tpu.tools.real_plane import (
+    from gsplat_jax.io.colmap import read_cameras_binary, read_images_binary
+    from gsplat_jax.ops.camera import build_camera_matrices
+    from gsplat_jax.tools.real_plane import (
         _bilinear, _default_layers, write_real_layers_dataset,
     )
     from PIL import Image as PILImage
@@ -179,7 +179,7 @@ def test_layers_dataset_occlusion_and_projection(tmp_path):
 
     # Occlusion sanity: some GT pixels differ between layered and
     # back-wall-only renders (the panels actually cover the wall).
-    from gsplat_tpu.tools.real_plane import render_layered_view
+    from gsplat_jax.tools.real_plane import render_layered_view
 
     im0 = list(imgs.values())[0]
     full = render_layered_view(

@@ -1,9 +1,9 @@
 """Rasterizer parity tests: Pallas kernels (interpret mode) vs numpy oracle.
 
-The oracle (gsplat_tpu.ops.oracle) is a line-by-line transcription of the
+The oracle (gsplat_jax.ops.oracle) is a line-by-line transcription of the
 reference CUDA compositing semantics; these tests gate the Pallas kernels'
 forward images, T_final / splats-per-pixel bookkeeping, and all five backward
-gradient families against it.
+gradient families against it, and the binning tables against brute force.
 """
 
 import jax
@@ -11,12 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gsplat_tpu.ops import oracle
-from gsplat_tpu.ops.binning import TileTables, build_tile_tables
-from gsplat_tpu.ops.render import rasterize
+from gsplat_jax.ops import oracle
+from gsplat_jax.ops.binning import TileTables, build_tile_tables
+from gsplat_jax.ops.render import rasterize
 
 TILE = 16
-CHUNK = 128
+CHUNK = 16  # small, so tiles span several chunks
 
 
 def _make_scene(rng, n, width, height, opa_range=(-2.0, 3.0)):
@@ -50,7 +50,7 @@ def _make_scene(rng, n, width, height, opa_range=(-2.0, 3.0)):
 
 def _tables(uv, z, radius, mask, width, height, conic, opa, rgb,
             pair_cap=4096):
-    from gsplat_tpu.ops.render import pack_attrs
+    from gsplat_jax.ops.render import pack_attrs
 
     ntx = (width + TILE - 1) // TILE
     nty = (height + TILE - 1) // TILE
@@ -62,7 +62,7 @@ def _tables(uv, z, radius, mask, width, height, conic, opa, rgb,
         jnp.asarray(uv), jnp.asarray(z), jnp.asarray(radius),
         jnp.asarray(mask), attrs=attrs,
         num_tiles_x=ntx, num_tiles_y=nty, tile_size=TILE,
-        pair_cap=pair_cap, chunk_size=CHUNK,
+        pair_cap=pair_cap,
         bf16_colors=False,  # exact f32 for oracle-parity comparisons
     ), ntx, nty
 
@@ -90,7 +90,7 @@ def test_binning_membership_and_depth_order(rng):
         assert np.all(np.diff(zs) >= 0), f"tile {t} not depth sorted"
 
     # Membership must equal the brute-force SAT test over all pairs.
-    from gsplat_tpu.ops.binning import obb_tile_intersects, tile_spans
+    from gsplat_jax.ops.binning import obb_tile_intersects, tile_spans
 
     tx0, ty0, nx, ny, counts = map(
         np.asarray,
@@ -141,8 +141,24 @@ def test_binning_mask_and_overflow(rng):
     assert int(tables.overflow) >= int(tables.num_pairs)
 
 
+def _render_kw(impl):
+    # The Pallas kernels in interpret mode, or the plain XLA reference.
+    if impl == "kernel":
+        return dict(interpret=True)
+    return dict(impl="reference")
+
+
 @pytest.mark.parametrize("bg", [0.0, 0.6])
 def test_forward_matches_oracle(rng, bg):
+    _check_forward(rng, bg, "kernel")
+
+
+@pytest.mark.parametrize("bg", [0.0, 0.6])
+def test_reference_forward_matches_oracle(rng, bg):
+    _check_forward(rng, bg, "reference")
+
+
+def _check_forward(rng, bg, impl):
     width, height = 48, 32
     n = 40
     uv, conic, radius, z, opa, rgb = _make_scene(rng, n, width, height)
@@ -153,7 +169,8 @@ def test_forward_matches_oracle(rng, bg):
     out = rasterize(
         jnp.asarray(uv), jnp.asarray(conic), jnp.asarray(rgb),
         jnp.asarray(opa), tables, jnp.float32(bg),
-        width=width, height=height, tile=TILE, chunk=CHUNK, interpret=True,
+        width=width, height=height, tile=TILE, chunk=CHUNK,
+        **_render_kw(impl),
     )
     ref_img, ref_t, ref_n = oracle.oracle_render_forward(
         uv, opa, conic, rgb, lists, width, height, TILE, bg
@@ -165,8 +182,8 @@ def test_forward_matches_oracle(rng, bg):
     tfin = tfin.transpose(0, 2, 1, 3).reshape(nty * TILE, ntx * TILE)
     nspl = np.asarray(out.n_splats).reshape(nty, ntx, TILE, TILE)
     nspl = nspl.transpose(0, 2, 1, 3).reshape(nty * TILE, ntx * TILE)
-    # T accumulates via log-space scans (kernel) vs sequential products
-    # (oracle): fp32 rounding differs by ~1e-4 relative.
+    # T accumulates via log-space scans (kernel) or chunked prefix products
+    # (reference) vs sequential products (oracle): fp32 rounding differs.
     np.testing.assert_allclose(tfin[:height, :width], ref_t, rtol=1e-3,
                                atol=1e-5)
     np.testing.assert_array_equal(
@@ -175,7 +192,21 @@ def test_forward_matches_oracle(rng, bg):
 
 
 def test_backward_matches_oracle(rng):
-    width, height = 32, 16
+    _check_backward(rng, "kernel")
+
+
+def test_reference_backward_matches_oracle(rng):
+    _check_backward(rng, "reference")
+
+
+def test_backward_uv_scale_is_the_image_size(rng):
+    # 24 px is 1.5 tile rows: the v-gradient scale is 0.5 * 24 (the
+    # image), not 0.5 * 32 (the tile grid), as in the reference and the
+    # tile-sharded step.
+    _check_backward(rng, "kernel", width=40, height=24)
+
+
+def _check_backward(rng, impl, width=32, height=16):
     n = 16
     uv, conic, radius, z, opa, rgb = _make_scene(rng, n, width, height)
     mask = np.ones(n, bool)
@@ -188,7 +219,7 @@ def test_backward_matches_oracle(rng):
         out = rasterize(
             uv_, conic_, rgb_, opa_, tables, jnp.float32(bg),
             width=width, height=height, tile=TILE, chunk=CHUNK,
-            interpret=True, bf16_grads=False,  # exact vs grad oracle
+            **_render_kw(impl),
         )
         return jnp.sum(out.image * grad_image)
 
@@ -245,7 +276,7 @@ def test_opacity_aware_radius_is_pixel_exact(rng):
     change the rendered image: the kernel skips sub-cutoff contributions."""
     import jax
 
-    from gsplat_tpu.ops.covariance import conic_and_radius, sigma_from_quat_scale
+    from gsplat_jax.ops.covariance import conic_and_radius, sigma_from_quat_scale
 
     width = height = 64
     n = 60
@@ -256,7 +287,7 @@ def test_opacity_aware_radius_is_pixel_exact(rng):
     rgb = rng.uniform(0, 1, (n, 3)).astype(np.float32)
     view = jnp.eye(4, dtype=jnp.float32)
 
-    from gsplat_tpu.ops import projection
+    from gsplat_jax.ops import projection
 
     jac = projection.projection_jacobian(
         jnp.asarray(xyz_c), 50.0, 50.0, 1.0, 1.0
@@ -300,11 +331,11 @@ def test_ellipse_cut_is_pixel_exact_and_subset(rng):
     a SUBSET of the pure-OBB pair set, (b) keep every pair with any pixel
     above the 1/255 alpha cutoff, and (c) leave the rendered image and
     T_final bit-identical (dropped pairs have zero contribution)."""
-    from gsplat_tpu.kernels.rasterize import ALPHA_CUTOFF
-    from gsplat_tpu.ops.covariance import (
+    from gsplat_jax.kernels.rasterize import ALPHA_CUTOFF
+    from gsplat_jax.ops.covariance import (
         conic_and_radius, sigma_from_quat_scale,
     )
-    from gsplat_tpu.ops import projection
+    from gsplat_jax.ops import projection
 
     width = height = 64
     n = 80
@@ -386,7 +417,7 @@ def test_bf16_packed_path_close_to_exact(rng):
     the shipping (packed) configuration, so it also catches any
     reconstruction bug (wrong tile origin, inf/NaN leaking from the
     invalid tail) that the exact-path oracle tests cannot see."""
-    from gsplat_tpu.ops.render import pack_attrs
+    from gsplat_jax.ops.render import pack_attrs
 
     width, height = 96, 64
     n = 180
@@ -405,14 +436,14 @@ def test_bf16_packed_path_close_to_exact(rng):
             jnp.asarray(uv), jnp.asarray(z), jnp.asarray(radius),
             jnp.asarray(mask), attrs=attrs,
             num_tiles_x=ntx, num_tiles_y=nty, tile_size=TILE,
-            pair_cap=4096, chunk_size=CHUNK, bf16_colors=packed,
+            pair_cap=4096, bf16_colors=packed,
         )
 
-        def loss_fn(uv_, conic_, rgb_, opa_, tb=tables, pk=packed):
+        def loss_fn(uv_, conic_, rgb_, opa_, tb=tables):
             out = rasterize(
                 uv_, conic_, rgb_, opa_, tb, jnp.float32(0.2),
                 width=width, height=height, tile=TILE, chunk=CHUNK,
-                interpret=True, bf16_grads=pk,
+                interpret=True,
             )
             return jnp.sum(out.image ** 2), out.image
 
@@ -432,7 +463,7 @@ def test_bf16_packed_path_close_to_exact(rng):
     np.testing.assert_allclose(img_packed, img_exact, atol=0.03)
     # PSNR-grade gate: elementwise tolerances pass on a biased-but-small
     # error too, so also require rounding-NOISE quality overall — any
-    # systematic bias from the bf16/f16/MXU chain would sink this first.
+    # systematic bias from the bf16/f16 packing chain would sink this first.
     mse = float(np.mean((img_packed - img_exact) ** 2))
     psnr = 10.0 * np.log10(1.0 / max(mse, 1e-12))
     assert psnr > 45.0, f"packed-vs-exact PSNR {psnr:.1f} dB"
@@ -446,8 +477,8 @@ def test_depth_rank_exact_ordering(rng):
     """The exact depth-rank fallback mode must produce the SAME pair set
     as the default log-bucket mode, with each tile's splats EXACTLY
     z-ascending (the reference's f32 ordering, culling.cu:294-298)."""
-    from gsplat_tpu.ops.binning import build_tile_tables
-    from gsplat_tpu.ops.render import pack_attrs
+    from gsplat_jax.ops.binning import build_tile_tables
+    from gsplat_jax.ops.render import pack_attrs
 
     width = height = 64
     n = 150
@@ -464,7 +495,7 @@ def test_depth_rank_exact_ordering(rng):
     rank[order] = np.arange(n, dtype=np.int32)
     kwargs = dict(
         num_tiles_x=4, num_tiles_y=4, tile_size=TILE,
-        pair_cap=2048, chunk_size=CHUNK, row_cap=1024, interpret=True,
+        pair_cap=2048, row_cap=1024,
     )
     tq = build_tile_tables(
         jnp.asarray(uv), jnp.asarray(z), jnp.asarray(radius),
@@ -496,36 +527,38 @@ def test_depth_rank_exact_ordering(rng):
         )
 
 
-def test_wide_offset_binning_matches_narrow(rng):
-    """The wide-offset mode (pair caps >= 2^24: offsets ride as hi/lo
-    record rows, int32 membership in the expand kernel) must produce
-    IDENTICAL tables to the single-row f32 path at any cap."""
-    from gsplat_tpu.ops.binning import build_tile_tables
-    from gsplat_tpu.ops.render import pack_attrs
+def test_binning_pair_slots_beyond_2_24():
+    """Pair slots past 2^24 (where f32 stops representing integers) are
+    plain int32 indices: 256 full-screen Gaussians on a 4096x4096 image
+    make 256 x 65536 = 2^24 pairs, so the last tiles' pairs sit at slots
+    above 2^24 of a pair cap of 2^24 + 2048."""
+    from gsplat_jax.ops.render import pack_attrs
 
-    width = height = 64
-    n = 120
-    uv, conic, radius, z, opa, rgb = _make_scene(rng, n, width, height)
-    mask = np.ones(n, bool)
-    attrs = pack_attrs(
-        jnp.asarray(uv), jnp.asarray(conic), jnp.asarray(rgb),
-        jnp.asarray(opa),
+    n, size = 256, 4096
+    ntx = nty = size // TILE
+    uv = np.full((n, 2), size / 2, np.float32)
+    radius = np.tile(np.array([[1.0e4, 1.0e4, 0.0, 1.0, 2.0]], np.float32),
+                     (n, 1))
+    z = np.linspace(1.0, 50.0, n).astype(np.float32)
+    conic = np.tile(np.array([[1e-8, 0.0, 1e-8]], np.float32), (n, 1))
+    attrs = pack_attrs(jnp.asarray(uv), jnp.asarray(conic),
+                       jnp.zeros((n, 3)), jnp.zeros((n,)))
+    cap = (1 << 24) + 2048
+    t = build_tile_tables(
+        jnp.asarray(uv), jnp.asarray(z), jnp.asarray(radius),
+        jnp.ones(n, bool), attrs=attrs, num_tiles_x=ntx, num_tiles_y=nty,
+        tile_size=TILE, pair_cap=cap, row_cap=n * nty + 512,
     )
-    tables = {}
-    for wide in (False, True):
-        tables[wide] = build_tile_tables(
-            jnp.asarray(uv), jnp.asarray(z), jnp.asarray(radius),
-            jnp.asarray(mask), attrs=attrs,
-            num_tiles_x=4, num_tiles_y=4, tile_size=TILE,
-            pair_cap=2048, chunk_size=CHUNK, row_cap=1024,
-            interpret=True, _wide_offsets=wide, _wide_rows=wide,
-        )
-    a, b = tables[False], tables[True]
-    np.testing.assert_array_equal(np.asarray(a.splat_gid),
-                                  np.asarray(b.splat_gid))
-    np.testing.assert_array_equal(np.asarray(a.tile_start),
-                                  np.asarray(b.tile_start))
-    np.testing.assert_array_equal(np.asarray(a.tile_count),
-                                  np.asarray(b.tile_count))
-    assert int(a.num_pairs) == int(b.num_pairs)
-    np.testing.assert_array_equal(np.asarray(a.stream), np.asarray(b.stream))
+    assert int(t.num_pairs) == n * ntx * nty == 1 << 24
+    assert int(t.overflow) <= cap
+    count = np.asarray(t.tile_count)
+    start = np.asarray(t.tile_start)
+    assert (count == n).all()
+    np.testing.assert_array_equal(start, np.arange(ntx * nty) * n)
+    gid = np.asarray(t.splat_gid)
+    # Every tile holds all Gaussians in depth (== id) order, including the
+    # last tile, whose slots lie above 2^24.
+    np.testing.assert_array_equal(
+        gid[: 1 << 24].reshape(ntx * nty, n), np.tile(np.arange(n), (ntx * nty, 1))
+    )
+    assert (gid[1 << 24:] == -1).all()

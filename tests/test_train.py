@@ -10,14 +10,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from gsplat_tpu.ops.adam import B1, B2, EPS, masked_adam_update
-from gsplat_tpu.ops.camera import build_camera_matrices
-from gsplat_tpu.train.density import (
+from gsplat_jax.ops.adam import B1, B2, EPS, masked_adam_update
+from gsplat_jax.ops.camera import build_camera_matrices
+from gsplat_jax.train.density import (
     DensityStatics, adaptive_density_step, morton_sort, reset_opacity,
 )
-from gsplat_tpu.train.init import GaussianData
-from gsplat_tpu.train.state import init_state, num_active, to_gaussian_data
-from gsplat_tpu.train.step import StepStatics, get_render_fn, get_train_step
+from gsplat_jax.train.init import GaussianData
+from gsplat_jax.train.state import init_state, num_active, to_gaussian_data
+from gsplat_jax.train.step import StepStatics, get_render_fn, get_train_step
 
 W, H = 48, 32
 
@@ -49,7 +49,7 @@ def _statics(l_max=0, pair_cap=2048):
         near_thresh=0.3, mh_dist=3.0, cull_padding=100, ssim_frac=0.2,
         base_lr=1e-3, xyz_lr_init=0.16, xyz_lr_final=0.0016,
         quat_lr=1.0, scale_lr=5.0, opacity_lr=25.0, rgb_lr=2.5, sh_lr=0.125,
-        scene_extent=2.0, num_iters=200,
+        scene_extent=2.0, num_iters=200, interpret=True,
     )
     return cm, st
 
@@ -228,7 +228,7 @@ def test_reset_opacity(rng):
 
 
 def test_checkpoint_roundtrip(tmp_path, rng):
-    from gsplat_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
+    from gsplat_jax.utils.checkpoint import load_checkpoint, save_checkpoint
 
     g = _synthetic_gaussians(rng, 8)
     state = init_state(g, n_cap=16)
@@ -254,12 +254,10 @@ def test_trainer_pair_cap_growth(tmp_path, rng):
     training must proceed correctly afterwards."""
     import dataclasses
 
-    import yaml
-
-    from gsplat_tpu.config import parse_config
-    from gsplat_tpu.tools.synthetic import write_synthetic_dataset
-    from gsplat_tpu.train.init import initialize_gaussians
-    from gsplat_tpu.train.trainer import Trainer
+    from gsplat_jax.config import parse_config
+    from gsplat_jax.tools.synthetic import write_synthetic_dataset
+    from gsplat_jax.train.init import initialize_gaussians
+    from gsplat_jax.train.trainer import Trainer
 
     scene = write_synthetic_dataset(
         tmp_path, name="scene", n_views=3, width=48, height=32,
@@ -267,10 +265,7 @@ def test_trainer_pair_cap_growth(tmp_path, rng):
         # dataset (extent is camera-only), so post-growth jitted programs
         # are shared within the pytest process
     )
-    base = yaml.safe_load(open("configs/base.yaml"))
-    cfg_path = tmp_path / "c.yaml"
-    with open(cfg_path, "w") as f:
-        yaml.safe_dump(base, f)
+    cfg_path = "configs/base.yaml"
     cfg = dataclasses.replace(
         parse_config(cfg_path),
         dataset_path="scene", downsample_factor=1, num_iters=16,
@@ -306,7 +301,7 @@ def test_monitor_window_catches_midwindow_events(rng):
     and non-finite losses that occur BETWEEN host boundaries (VERDICT r1
     weak #2/#3): a NaN injected at step 2 of 3 is still visible after
     step 3, and the overflow max covers every step in the window."""
-    from gsplat_tpu.train.step import fresh_monitor, monitored_train_step
+    from gsplat_jax.train.step import fresh_monitor, monitored_train_step
 
     g = _synthetic_gaussians(rng, 400)
     state = init_state(g, n_cap=512)
@@ -346,10 +341,10 @@ def test_evaluate_pipelined_and_skip_warning(tmp_path, rng):
     import dataclasses
     import warnings
 
-    from gsplat_tpu.config import parse_config
-    from gsplat_tpu.tools.synthetic import write_synthetic_dataset
-    from gsplat_tpu.train.init import initialize_gaussians
-    from gsplat_tpu.train.trainer import Trainer
+    from gsplat_jax.config import parse_config
+    from gsplat_jax.tools.synthetic import write_synthetic_dataset
+    from gsplat_jax.train.init import initialize_gaussians
+    from gsplat_jax.train.trainer import Trainer
 
     # Reuse test_cli's dataset + config construction VERBATIM: identical
     # geometry/caps means the jitted render program is already compiled
